@@ -9,7 +9,7 @@ train_per_iretation.py:264-444, CN2_evaluate.py:176-286). Writes a
 small JSON next to the other quality artifacts.
 
 Runs anywhere: JAX_PLATFORMS=cpu for a chip-free check (flagship-size
-n_max=16 is cheap on host), or on the TPU when it is free.
+n_max=16 is cheap on host), or on the GPU.
 
     JAX_PLATFORMS=cpu python benchmarks/npz_restore_check.py \
         artifacts/q_learned_r5_s2025.npz --shells 2 \
@@ -37,9 +37,9 @@ class _SnapshotState:
 
 
 def main(argv=None):
-    from diffusion_model_tpu.utils import apply_env_platform
+    from diffusion_model.utils import setup_compile_cache
 
-    apply_env_platform()
+    setup_compile_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("npz")
     p.add_argument("--num", type=int, default=256,
@@ -51,16 +51,16 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from diffusion_model_tpu import api
-    from diffusion_model_tpu.data.split import split_dataset
-    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-    from diffusion_model_tpu.evals import (
+    from diffusion_model import api
+    from diffusion_model.data.split import split_dataset
+    from diffusion_model.data.synthetic import synthetic_sio2_dataset
+    from diffusion_model.evals import (
         conditional_angle_parity,
         evaluate_rdf_lists,
         r2score,
     )
-    from diffusion_model_tpu.train import Trainer
-    from diffusion_model_tpu.train.checkpoint import (
+    from diffusion_model.train import Trainer
+    from diffusion_model.train.checkpoint import (
         load_config_npz,
         load_params_npz,
     )

@@ -1,7 +1,7 @@
 """Bisect the 192-atom network-data training NaN on the real chip.
 
 A 192-atom/bs-8/kNN-32 run on amorphous_network_cell data goes
-non-finite EVERY epoch on the TPU (runs/size_gen_192net diverged) while
+non-finite EVERY epoch on the accelerator (runs/size_gen_192net diverged) while
 a 4-step single-batch probe on the first 8 cells was finite. Replaying
 api.train's exact epoch-0 path showed it is NOT a poison cell: batch 0
 steps fine (loss 785, grad_norm 7.8e4 pre-clip), then EVERY cell scores
@@ -34,10 +34,10 @@ def tree_l2(a, b):
 def run_case(train_set, label, steps, retest_init=False, **over):
     import jax
 
-    from diffusion_model_tpu.config import Config
-    from diffusion_model_tpu.data.batch import collate
-    from diffusion_model_tpu.data.split import device_batch_iterator
-    from diffusion_model_tpu.train.trainer import Trainer
+    from diffusion_model.config import Config
+    from diffusion_model.data.batch import collate
+    from diffusion_model.data.split import device_batch_iterator
+    from diffusion_model.train.trainer import Trainer
 
     kw = dict(
         n_max=192, neighbor_k=32, batch_size=8,
@@ -93,10 +93,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    from diffusion_model_tpu import api
-    from diffusion_model_tpu.config import Config
-    from diffusion_model_tpu.data.split import split_dataset
-    from diffusion_model_tpu.data.synthetic import amorphous_network_cell
+    from diffusion_model import api
+    from diffusion_model.config import Config
+    from diffusion_model.data.split import split_dataset
+    from diffusion_model.data.synthetic import amorphous_network_cell
 
     print("devices", jax.devices(), flush=True)
     cfg0 = Config(n_max=192)

@@ -1,8 +1,8 @@
 """Snapshot a run dir's EVAL parameters to a portable .npz artifact.
 
-Run dirs (Orbax checkpoint trees under runs/) are recycled with the
-sandbox; the quality claims then lose their loadable artifacts
-(CLAUDE.md: every round so far has lost at least one). The flat npz
+Run dirs (checkpoints under runs/) are not committed, so quality
+claims that rest on them lose their loadable artifacts when the run dir
+goes. The flat npz
 snapshot (train/checkpoint.save_params_npz, ~8 MB at the flagship size
 in f16) is small enough to commit, and embeds the run config so it is
 self-describing:
@@ -27,9 +27,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 
 def main(argv=None):
-    from diffusion_model_tpu.utils import apply_env_platform
+    from diffusion_model.utils import setup_compile_cache
 
-    apply_env_platform()
+    setup_compile_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("run_dir")
     p.add_argument("out")
@@ -38,15 +38,15 @@ def main(argv=None):
 
     import jax
 
-    from diffusion_model_tpu.data.split import batch_iterator
-    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-    from diffusion_model_tpu.train import Trainer
-    from diffusion_model_tpu.train.checkpoint import (
+    from diffusion_model.data.split import batch_iterator
+    from diffusion_model.data.synthetic import synthetic_sio2_dataset
+    from diffusion_model.train import Trainer
+    from diffusion_model.train.checkpoint import (
         latest_step,
         restore_checkpoint,
         save_params_npz,
     )
-    from diffusion_model_tpu.utils.logging import load_run_config
+    from diffusion_model.utils.logging import load_run_config
 
     cfg = load_run_config(args.run_dir)
     trainer = Trainer(cfg)

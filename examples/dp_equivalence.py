@@ -47,9 +47,9 @@ def main():
     p.add_argument("--work_dir", type=str, default="runs/dp_equiv")
     args = p.parse_args()
 
-    from diffusion_model_tpu import api
-    from diffusion_model_tpu.config import Config
-    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+    from diffusion_model import api
+    from diffusion_model.config import Config
+    from diffusion_model.data.synthetic import synthetic_sio2_dataset
 
     base = Config(
         n_max=16, L=2, m_hidden_size=32, h_hidden_size=32,

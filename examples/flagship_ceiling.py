@@ -44,10 +44,10 @@ def main():
                    default="docs/quality/flagship_ceiling.json")
     args = p.parse_args()
 
-    from diffusion_model_tpu.config import from_dict
-    from diffusion_model_tpu.data.split import split_dataset
-    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-    from diffusion_model_tpu.evals import (
+    from diffusion_model.config import from_dict
+    from diffusion_model.data.split import split_dataset
+    from diffusion_model.data.synthetic import synthetic_sio2_dataset
+    from diffusion_model.evals import (
         conditional_angle_parity,
         nn_ceiling_r2,
         r2score,

@@ -37,8 +37,8 @@ def run_range(nn_range, corpus, work_dir, epochs, overrides):
     import numpy as np
     import yaml
 
-    from diffusion_model_tpu.cli import main as cli_main
-    from diffusion_model_tpu.cli import make_dataset
+    from diffusion_model.cli import main as cli_main
+    from diffusion_model.cli import make_dataset
 
     ds_dir = os.path.join(work_dir, f"dataset_{nn_range}")
     run_dir = os.path.join(work_dir, f"run_{nn_range}")
@@ -62,8 +62,8 @@ def run_range(nn_range, corpus, work_dir, epochs, overrides):
 
 
 def main():
-    from diffusion_model_tpu.utils import apply_env_platform
-    apply_env_platform()
+    from diffusion_model.utils import setup_compile_cache
+    setup_compile_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--work_dir", type=str, default="runs/real_data_e2e")
     p.add_argument("--epochs", type=int, default=1500)
@@ -84,7 +84,7 @@ def main():
 
     import numpy as np
 
-    from diffusion_model_tpu.data import polymorphs
+    from diffusion_model.data import polymorphs
 
     corpus = os.path.join(args.work_dir, "corpus")
     shutil.rmtree(args.work_dir, ignore_errors=True)
@@ -99,13 +99,13 @@ def main():
     overrides = {"batch_size": args.batch_size, "lr": 2e-4,
                  "optimizer": "RAdamScheduleFree",
                  "num_diffusion_timestep": args.timesteps}
-    # compute_dtype stays float32: this driver runs CPU-side (the TPU is
-    # reserved for the quality queue) and bf16 is emulated ~10x slow there
+    # compute_dtype stays float32: this driver runs CPU-side, where bf16
+    # is emulated ~10x slow
 
     # --- 2NN: RDF + species readouts -------------------------------
     run2, m2, _ = run_range("2NN", corpus, args.work_dir, args.epochs,
                             overrides)
-    from diffusion_model_tpu.cli import evaluate_rdf
+    from diffusion_model.cli import evaluate_rdf
     evaluate_rdf.main(["--run_dir", run2])
     with open(os.path.join(run2, "metrics.jsonl")) as f:
         for line in f:
@@ -114,7 +114,7 @@ def main():
     # --- 1NN: CN2 angle parity + information ceiling -----------------
     run1, m1, res1 = run_range("1NN", corpus, args.work_dir, args.epochs,
                                overrides)
-    from diffusion_model_tpu.cli import evaluate_cn2
+    from diffusion_model.cli import evaluate_cn2
     evaluate_cn2.main(["--run_dir", run1])
     with open(os.path.join(run1, "metrics.jsonl")) as f:
         for line in f:
@@ -122,10 +122,10 @@ def main():
 
     # 1-NN spectrum-space ceilings on the TRUE geometry of the corpus
     # (evals/baseline.py): bound what any conditional model can extract
-    from diffusion_model_tpu.data.io import load_dataset
-    from diffusion_model_tpu.data.split import split_dataset
-    from diffusion_model_tpu.evals import nn_ceiling_r2
-    from diffusion_model_tpu.ops.angles import cn2_angle_deg
+    from diffusion_model.data.io import load_dataset
+    from diffusion_model.data.split import split_dataset
+    from diffusion_model.evals import nn_ceiling_r2
+    from diffusion_model.ops.angles import cn2_angle_deg
 
     graphs = load_dataset(
         os.path.join(args.work_dir, "dataset_1NN", "dataset.npz"))
@@ -165,14 +165,14 @@ def main():
     }
 
     # per-polymorph breakdown over the 1NN generation results
-    from diffusion_model_tpu.cli.common import load_results
-    from diffusion_model_tpu.evals import r2score
-    from diffusion_model_tpu.evals.cn2 import (
+    from diffusion_model.cli.common import load_results
+    from diffusion_model.evals import r2score
+    from diffusion_model.evals.cn2 import (
         _cn2_sample_geometry,
         conditional_angle_parity,
     )
 
-    from diffusion_model_tpu.utils.logging import load_run_config
+    from diffusion_model.utils.logging import load_run_config
 
     results1 = load_results(run1, accepted_only=False)
     geo = _cn2_sample_geometry(results1)

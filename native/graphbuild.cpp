@@ -1,4 +1,4 @@
-// Native dataset-builder kernels for diffusion_model_tpu.
+// Native dataset-builder kernels for diffusion_model.
 //
 // The reference reaches native code for neighbour analysis only through
 // pymatgen/PyG internals (SURVEY.md §2.7); here the host-side hot path of

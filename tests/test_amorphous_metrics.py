@@ -5,11 +5,11 @@ and the continuous-random-network cell generator
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.data.synthetic import (
+from diffusion_model.data.synthetic import (
     amorphous_cell,
     amorphous_network_cell,
 )
-from diffusion_model_tpu.evals.amorphous import (
+from diffusion_model.evals.amorphous import (
     aggregate_exo_rdf,
     bond_angle_samples,
     coordination_stats,

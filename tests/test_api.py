@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from diffusion_model_tpu import api
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+from diffusion_model import api
+from diffusion_model.config import Config
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +58,7 @@ class TestApi:
             assert os.path.isfile(os.path.join(run_dir, "first_min_rmsd.xyz"))
 
         # resume from checkpoint: same eval params -> same denoise output
-        from diffusion_model_tpu.data.batch import collate
+        from diffusion_model.data.batch import collate
 
         example = collate(te[:1], cfg.n_max)
         trainer2, state2 = api.load_trained(run_dir, cfg, example)
@@ -121,7 +121,7 @@ class TestNanRecovery:
         )
         graphs = synthetic_sio2_dataset(3, 16, cfg.n_max,
                                         spectrum_size=cfg.spectrum_size)
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.train import Trainer
 
         calls = {"n": 0}
         orig = Trainer.train_epoch
@@ -146,7 +146,7 @@ class TestNanRecovery:
 class TestTrajectory:
     @pytest.mark.slow
     def test_generate_trajectory_and_movie(self, tmp_path):
-        from diffusion_model_tpu.data.xyz import write_xyz_trajectory
+        from diffusion_model.data.xyz import write_xyz_trajectory
 
         cfg = Config(
             n_max=8, L=1, m_hidden_size=16, h_hidden_size=16,
@@ -182,7 +182,7 @@ class TestSizePrediction:
         import jax.numpy as jnp
         import optax
 
-        from diffusion_model_tpu.nn import CNPredictor
+        from diffusion_model.nn import CNPredictor
 
         cfg = Config(
             n_max=8, L=1, m_hidden_size=16, h_hidden_size=16,

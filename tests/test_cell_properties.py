@@ -8,7 +8,7 @@ ref data_preparation.py:14-50, only ever read its own exports)."""
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.data.cell import (
+from diffusion_model.data.cell import (
     CellStructure,
     distance_matrix,
     lattice_from_parameters,

@@ -5,11 +5,13 @@ import os
 
 import numpy as np
 import pytest
-import yaml
 
-from diffusion_model_tpu.cli import main as cli_main
-from diffusion_model_tpu.data.io import save_dataset
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.cli import main as cli_main
+from diffusion_model.data.io import save_dataset
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+
+# config files are YAML; the package itself does not need PyYAML
+yaml = pytest.importorskip("yaml")
 
 MICRO_CFG = dict(
     L=1, m_hidden_size=16, h_hidden_size=16, x_hidden_size=16, m_size=8,
@@ -72,7 +74,7 @@ class TestMainCLI:
 class TestGenerateAmorphousCLI:
     @pytest.mark.slow
     def test_runs_on_trained_dir(self, tmp_path, micro_yaml):
-        from diffusion_model_tpu.cli import generate_amorphous
+        from diffusion_model.cli import generate_amorphous
 
         run_dir = str(tmp_path / "run3")
         cli_main.main([
@@ -93,7 +95,7 @@ class TestGenerateAmorphousCLI:
         chunked sampling, structural panel + in-protocol RDF ceiling."""
         import json
 
-        from diffusion_model_tpu.cli import generate_amorphous
+        from diffusion_model.cli import generate_amorphous
 
         run_dir = str(tmp_path / "run3b")
         cli_main.main([
@@ -120,7 +122,7 @@ class TestGenerateAmorphousCLI:
         the CLI route for cells whose pair grid exceeds one chip —
         exercised here on the 8-device virtual mesh (fit_n_max rounds to
         a multiple of 8, so the node axis shards evenly)."""
-        from diffusion_model_tpu.cli import generate_amorphous
+        from diffusion_model.cli import generate_amorphous
 
         run_dir = str(tmp_path / "run_ring")
         cli_main.main([
@@ -140,7 +142,7 @@ class TestGenerateAmorphousCLI:
 
 class TestCNCLI:
     def test_cn_predictor_trains(self, capsys):
-        from diffusion_model_tpu.cli import cn
+        from diffusion_model.cli import cn
 
         cn.main(["--synthetic", "64", "--epochs", "60"])
         out = capsys.readouterr().out
@@ -157,10 +159,10 @@ class TestCNCLI:
         import jax.numpy as jnp
         import optax
 
-        from diffusion_model_tpu.cli.cn import graphs_to_xy, macro_f1
-        from diffusion_model_tpu.data.split import split_dataset
-        from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-        from diffusion_model_tpu.nn import CNPredictor
+        from diffusion_model.cli.cn import graphs_to_xy, macro_f1
+        from diffusion_model.data.split import split_dataset
+        from diffusion_model.data.synthetic import synthetic_sio2_dataset
+        from diffusion_model.nn import CNPredictor
 
         graphs = synthetic_sio2_dataset(2024, 256, 16, spectrum_size=200)
         train_g, _, test_g = split_dataset(graphs, 2024)

@@ -7,11 +7,13 @@ import os
 
 import numpy as np
 import pytest
-import yaml
 
-from diffusion_model_tpu.cli import main as cli_main
-from diffusion_model_tpu.data.io import save_dataset
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.cli import main as cli_main
+from diffusion_model.data.io import save_dataset
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+
+# config files are YAML; the package itself does not need PyYAML
+yaml = pytest.importorskip("yaml")
 
 MICRO_CFG = dict(
     L=1, m_hidden_size=16, h_hidden_size=16, x_hidden_size=16, m_size=8,
@@ -38,27 +40,27 @@ def run_dir(tmp_path_factory):
 
 class TestEvaluatorCLIs:
     def test_evaluate_rdf(self, run_dir, capsys):
-        from diffusion_model_tpu.cli.evaluate_rdf import main
+        from diffusion_model.cli.evaluate_rdf import main
 
         main(["--run_dir", run_dir])
         assert "rdf cos" in capsys.readouterr().out
 
     def test_evaluate_rdf_all_metrics(self, run_dir, capsys):
-        from diffusion_model_tpu.cli.evaluate_rdf import main
+        from diffusion_model.cli.evaluate_rdf import main
 
         for metric in ("euclidean", "mse", "wasserstein"):
             main(["--run_dir", run_dir, "--metric", metric])
         assert "rdf" in capsys.readouterr().out
 
     def test_evaluate_cn2(self, run_dir, capsys):
-        from diffusion_model_tpu.cli.evaluate_cn2 import main
+        from diffusion_model.cli.evaluate_cn2 import main
 
         main(["--run_dir", run_dir])
         out = capsys.readouterr().out
         assert "angle" in out or "CN2" in out
 
     def test_evaluate_rmsd(self, run_dir, capsys):
-        from diffusion_model_tpu.cli.evaluate_rmsd import main
+        from diffusion_model.cli.evaluate_rmsd import main
 
         main(["--run_dir", run_dir])
         out = capsys.readouterr().out.lower()
@@ -66,7 +68,7 @@ class TestEvaluatorCLIs:
         assert "best" in out and "worst" in out
 
     def test_evaluate_si_o_si(self, run_dir, capsys):
-        from diffusion_model_tpu.cli.evaluate_si_o_si import main
+        from diffusion_model.cli.evaluate_si_o_si import main
 
         main(["--run_dir", run_dir])
         out = capsys.readouterr().out.lower()
@@ -75,14 +77,14 @@ class TestEvaluatorCLIs:
         assert "si-o-si" in out or "2-si-coordinated" in out
 
     def test_evaluate_fingerprint_both_methods(self, run_dir, capsys):
-        from diffusion_model_tpu.cli.evaluate_fingerprint import main
+        from diffusion_model.cli.evaluate_fingerprint import main
 
         main(["--run_dir", run_dir])
         main(["--run_dir", run_dir, "--method", "morgan"])
         assert "similarity" in capsys.readouterr().out.lower()
 
     def test_create_xyz(self, run_dir, tmp_path):
-        from diffusion_model_tpu.cli.create_xyz import main
+        from diffusion_model.cli.create_xyz import main
 
         out_dir = str(tmp_path / "xyz")
         main(["--run_dir", run_dir, "--out_dir", out_dir])
@@ -96,7 +98,7 @@ class TestEvaluatorCLIs:
         )
 
     def test_template_matching(self, run_dir, tmp_path, capsys):
-        from diffusion_model_tpu.cli.template_matching import main
+        from diffusion_model.cli.template_matching import main
 
         ref = synthetic_sio2_dataset(5, 12, 8, spectrum_size=16)
         tgt = synthetic_sio2_dataset(6, 4, 8, spectrum_size=16)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.batch import GraphBatch
-from diffusion_model_tpu.diffusion import (
+from diffusion_model.config import Config
+from diffusion_model.data.batch import GraphBatch
+from diffusion_model.diffusion import (
     calculate_mu,
     diffuse_zero_to_t,
     learned_schedule,
@@ -16,8 +16,8 @@ from diffusion_model_tpu.diffusion import (
     sample,
     sample_with_retry,
 )
-from diffusion_model_tpu.diffusion.sampler import tile_batch
-from diffusion_model_tpu.nn import DiffusionDenoiser, GammaNetwork
+from diffusion_model.diffusion.sampler import tile_batch
+from diffusion_model.nn import DiffusionDenoiser, GammaNetwork
 
 
 def small_cfg(**kw):
@@ -261,7 +261,7 @@ class TestStridedSampler:
 
 class TestSnrGrid:
     def test_monotone_with_pinned_endpoints(self):
-        from diffusion_model_tpu.diffusion.sampler import snr_grid
+        from diffusion_model.diffusion.sampler import snr_grid
 
         cfg = small_cfg(num_diffusion_timestep=100)
         alphas = predefined_schedule(cfg).alphas
@@ -276,7 +276,7 @@ class TestSnrGrid:
         uniform would place only ~1/5 of them there."""
         import jax.numpy as jnp
 
-        from diffusion_model_tpu.diffusion.sampler import snr_grid
+        from diffusion_model.diffusion.sampler import snr_grid
 
         t = np.arange(101) / 100.0
         # piecewise log-SNR: slow drift on the tails, a 30-unit jump inside
@@ -296,7 +296,7 @@ class TestSnrGrid:
         f32 clip saturation)."""
         import jax.numpy as jnp
 
-        from diffusion_model_tpu.diffusion.sampler import snr_grid
+        from diffusion_model.diffusion.sampler import snr_grid
 
         t = np.arange(1001) / 1000.0
         g = (-9.2 + 60.0 * np.clip((t - 0.1) / 0.4, 0, 1)

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.split import batch_iterator
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.diffusion import predefined_schedule, sample
-from diffusion_model_tpu.diffusion.process import reverse_diffuse_one_step
-from diffusion_model_tpu.train import Trainer
-from diffusion_model_tpu.train.distill import (
+from diffusion_model.config import Config
+from diffusion_model.data.split import batch_iterator
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.diffusion import predefined_schedule, sample
+from diffusion_model.diffusion.process import reverse_diffuse_one_step
+from diffusion_model.train import Trainer
+from diffusion_model.train.distill import (
     PhaseSchedule,
     full_phase,
     progressive_distill,

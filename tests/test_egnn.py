@@ -2,7 +2,7 @@
 
 The loop oracle re-implements the reference EGCL semantics
 (ref EquivariantGraphNeuralNetwork.py:55-71) edge-by-edge in numpy using the
-same flax parameters, validating the dense masked formulation.
+same parameters, validating the dense masked formulation.
 """
 
 import jax
@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.nn import (
+from diffusion_model.config import Config
+from diffusion_model.nn import (
     DiffusionDenoiser,
     EGCL,
     GammaNetwork,
     SpectrumCompressor,
 )
-from diffusion_model_tpu.ops import dense_pair_mask
+from diffusion_model.ops import dense_pair_mask
 
 
 def silu(v):
@@ -296,13 +296,13 @@ class TestGlobalRadiusFeature:
 
     def test_trains_and_samples_with_knn(self, rng):
         """End-to-end smoke on the path it exists for: kNN topology."""
-        from diffusion_model_tpu.data.batch import collate
-        from diffusion_model_tpu.data.synthetic import amorphous_cell
-        from diffusion_model_tpu.diffusion import (
+        from diffusion_model.data.batch import collate
+        from diffusion_model.data.synthetic import amorphous_cell
+        from diffusion_model.diffusion import (
             predefined_schedule,
             sample,
         )
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.train import Trainer
 
         cfg = self._cfg(neighbor_k=4, num_diffusion_timestep=8,
                         batch_size=2, optimizer="Adam",
@@ -331,7 +331,7 @@ class TestHInitScale:
     """
 
     def _forward_mag(self, rng, scale, n=96, L=5):
-        from diffusion_model_tpu.nn.egnn import EquivariantGNN
+        from diffusion_model.nn.egnn import EquivariantGNN
 
         net = EquivariantGNN(L=L, m_hidden=64, m_out=64, x_hidden=64,
                              h_hidden=64, h_out=32, h_init_scale=scale)
@@ -339,9 +339,14 @@ class TestHInitScale:
         x = jnp.asarray(rng.normal(size=(1, n, 3)), jnp.float32)
         mask = jnp.ones((1, n), jnp.float32)
         pm = dense_pair_mask(mask)
-        params = net.init(jax.random.key(7), h, x, pm)
-        h_out, _ = net.apply(params, h, x, pm)
-        return float(jnp.mean(jnp.abs(h_out))), params
+        # the untrained magnitude is heavy-tailed over init draws: take
+        # the median over a few keys
+        mags = []
+        for k in range(5):
+            params = net.init(jax.random.key(k), h, x, pm)
+            h_out, _ = net.apply(params, h, x, pm)
+            mags.append(float(jnp.mean(jnp.abs(h_out))))
+        return float(np.median(mags)), params
 
     def test_damped_init_tames_blowup(self, rng):
         mag_default, p_default = self._forward_mag(rng, 1.0)
@@ -358,13 +363,13 @@ class TestHInitScale:
 
     def test_scale_one_is_lecun(self, rng):
         # variance_scaling(1.0, fan_in, truncated_normal) IS lecun_normal:
-        # the scale=1.0 config reproduces the historical init bit-for-bit.
-        import flax.linen as nn
+        # the scale=1.0 config draws the default lecun-normal kernel.
+        from diffusion_model.nn.dense import init_dense, subkey
 
         k = jax.random.key(3)
-        a = nn.initializers.lecun_normal()(k, (64, 32), jnp.float32)
-        b = nn.initializers.variance_scaling(
-            1.0, "fan_in", "truncated_normal")(k, (64, 32), jnp.float32)
+        a = jax.nn.initializers.lecun_normal()(subkey(k, "w"), (64, 32),
+                                               jnp.float32)
+        b = init_dense(k, "w", 64, 32, scale=1.0)["kernel"]
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -407,7 +412,7 @@ class TestHResidual:
         np.testing.assert_array_equal(np.asarray(h_r), np.asarray(h_p))
 
     def test_dense_sparse_parity(self, rng):
-        from diffusion_model_tpu.ops.edges import knn_edges
+        from diffusion_model.ops.edges import knn_edges
 
         plain, res, params, h, x, pm, mask = self._pair(rng, 8, 8)
         k = 4
@@ -425,7 +430,7 @@ class TestHResidual:
                                    rtol=2e-5, atol=2e-5)
 
     def test_bounds_untrained_stack(self, rng):
-        from diffusion_model_tpu.nn.egnn import EquivariantGNN
+        from diffusion_model.nn.egnn import EquivariantGNN
 
         def mag(h_residual):
             net = EquivariantGNN(L=5, m_hidden=64, m_out=64, x_hidden=64,
@@ -532,7 +537,7 @@ class TestVirtualNode:
                                    rtol=1e-5, atol=1e-5)
 
     def test_dense_sparse_parity(self, rng):
-        from diffusion_model_tpu.ops.edges import knn_edges
+        from diffusion_model.ops.edges import knn_edges
 
         h, x, mask, pm, kw = self._setup(rng)
         vn = EGCL(virtual_node=True, **kw)
@@ -549,10 +554,10 @@ class TestVirtualNode:
     def test_trains_and_samples_with_knn(self, rng):
         """End-to-end plumbing: a kNN virtual-node config trains a step
         and samples finitely through api-level machinery."""
-        from diffusion_model_tpu.data.batch import collate
-        from diffusion_model_tpu.data.synthetic import amorphous_cell
-        from diffusion_model_tpu.diffusion import sample
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.data.batch import collate
+        from diffusion_model.data.synthetic import amorphous_cell
+        from diffusion_model.diffusion import sample
+        from diffusion_model.train import Trainer
 
         cfg = Config(
             n_max=8, L=2, m_hidden_size=32, h_hidden_size=32,
@@ -583,12 +588,11 @@ class TestRematEGCL:
 
     jax.checkpoint must be numerically invisible: identical parameter
     tree, identical forward outputs, identical gradients — it only
-    changes what the backward pass keeps live (the 512-atom kNN-32
-    batch-32 train step OOMs the 16 GiB v5e without it).
+    changes what the backward pass keeps live.
     """
 
     def _nets(self):
-        from diffusion_model_tpu.nn.egnn import EquivariantGNN
+        from diffusion_model.nn.egnn import EquivariantGNN
 
         kw = dict(L=3, m_hidden=32, m_out=16, x_hidden=32, h_hidden=32,
                   h_out=8, zero_init_x=False, h_residual=True,
@@ -621,7 +625,7 @@ class TestRematEGCL:
             g0, g1)
 
     def test_sparse_path_under_jit(self, rng):
-        from diffusion_model_tpu.ops.edges import knn_edges
+        from diffusion_model.ops.edges import knn_edges
 
         plain, remat = self._nets()
         h = jnp.asarray(rng.normal(size=(1, 7, 8)), jnp.float32)
@@ -716,7 +720,7 @@ class TestEdgeRBF:
                                    rtol=1e-5, atol=1e-5)
 
     def test_dense_sparse_parity(self, rng):
-        from diffusion_model_tpu.ops.edges import knn_edges
+        from diffusion_model.ops.edges import knn_edges
 
         h, x, mask, pm, kw = self._setup(rng)
         layer = EGCL(edge_rbf=6, **kw)
@@ -745,18 +749,6 @@ class TestEdgeRBF:
         assert all(bool(jnp.all(jnp.isfinite(v)))
                    for v in jax.tree.leaves(g_p))
         assert bool(jnp.all(jnp.isfinite(g_x)))
-
-    def test_fast_path_rejects(self, rng):
-        # the ring path now SUPPORTS edge_rbf/virtual_node (parity-tested
-        # in tests/test_ring.py); only the Pallas fast path still guards
-        from diffusion_model_tpu.nn.fast_apply import fast_denoise_fn
-
-        cfg = Config(n_max=8, L=2, m_hidden_size=32, h_hidden_size=32,
-                     x_hidden_size=32, m_size=16, spectrum_size=16,
-                     compressed_spectrum_size=8, compressor_hidden_dim=(8,),
-                     edge_rbf=6)
-        with pytest.raises(NotImplementedError, match="edge_rbf"):
-            fast_denoise_fn(cfg, {"params": {}})
 
     def test_degenerate_rbf_config_rejected(self, rng):
         """edge_rbf=1 would divide by zero in the RBF width; rmax <= 0

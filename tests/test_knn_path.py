@@ -5,17 +5,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.batch import collate
-from diffusion_model_tpu.data.split import batch_iterator
-from diffusion_model_tpu.data.synthetic import (
+from diffusion_model.config import Config
+from diffusion_model.data.batch import collate
+from diffusion_model.data.split import batch_iterator
+from diffusion_model.data.synthetic import (
     amorphous_cell,
     synthetic_sio2_dataset,
 )
-from diffusion_model_tpu.diffusion import predefined_schedule, sample
-from diffusion_model_tpu.nn import DiffusionDenoiser
-from diffusion_model_tpu.ops import dense_pair_mask, knn_edges
-from diffusion_model_tpu.train import Trainer
+from diffusion_model.diffusion import predefined_schedule, sample
+from diffusion_model.nn import DiffusionDenoiser
+from diffusion_model.ops import dense_pair_mask, knn_edges
+from diffusion_model.train import Trainer
 
 
 def tiny_cfg(**kw):
@@ -85,3 +85,29 @@ class TestKnnEquivalence:
         state = trainer.init_state(jax.random.key(0), batch)
         state, m = trainer.train_step(state, jax.random.key(1), batch)
         assert np.isfinite(float(m["loss"]))
+
+
+def test_generate_2048_atoms_through_xla():
+    """The large-cell recipe (kNN + h_residual + virtual_node) at 2048
+    atoms samples through ``api.generate``, whose chain is the plain
+    sampler over ``Trainer.denoise_fn``: same key, same structure."""
+    from diffusion_model import api
+
+    cfg = tiny_cfg(n_max=2048, neighbor_k=8, h_residual=True,
+                   virtual_node=True, sample_steps=3, batch_size=1,
+                   max_nan_retries=0)
+    cell = amorphous_cell(seed=0, num_atoms=2048,
+                          spectrum_size=cfg.spectrum_size)
+    cond = collate([cell], cfg.n_max)
+    trainer = Trainer(cfg)
+    state = trainer.init_state(jax.random.key(0), cond)
+    res = api.generate(cfg, trainer, state, [cell], key=jax.random.key(1),
+                       gen_num_per_spectrum=1, batch_size=1)
+    assert res["generated_pos"].shape == (1, 2048, 3)
+    assert np.isfinite(res["generated_pos"]).all()
+    params = state.eval_params(cfg)
+    direct = jax.jit(lambda k: sample(
+        trainer.denoise_fn(params), trainer.schedule_for(params), cfg, k,
+        cond))(jax.random.split(jax.random.key(1))[1])
+    np.testing.assert_allclose(res["generated_pos"], np.asarray(direct.pos),
+                               rtol=1e-6, atol=1e-6)

@@ -10,12 +10,12 @@ Covers the parity targets of ref data_preparation.py:126-174 and :248-282.
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.data.cell import (
+from diffusion_model.data.cell import (
     CellStructure,
     lattice_from_parameters,
     supercell_333,
 )
-from diffusion_model_tpu.data.local_env import (
+from diffusion_model.data.local_env import (
     COVALENT_RADII,
     bonded_neighbors,
     ex_o_vectors,
@@ -168,7 +168,7 @@ class TestVoronoiRule:
     divergence boundary against the framework's covalent-radius rule."""
 
     def _quartz(self):
-        from diffusion_model_tpu.data.cell import read_castep_cell
+        from diffusion_model.data.cell import read_castep_cell
 
         return read_castep_cell(
             "tests/fixtures/castep/sample_000_quartz/coreloss.cell")
@@ -176,7 +176,7 @@ class TestVoronoiRule:
     def test_solid_angles_close_the_sphere(self, rng):
         """The facet solid angles of a closed Voronoi cell MUST sum to
         4*pi — the global invariant of the polygon solid-angle math."""
-        from diffusion_model_tpu.data.local_env import _voronoi_facets
+        from diffusion_model.data.local_env import _voronoi_facets
 
         for lattice_name in sorted(LATTICES):
             struct = _random_cell(np.random.default_rng(3),
@@ -190,7 +190,7 @@ class TestVoronoiRule:
         """On real SiO2 (the bundled alpha-quartz CASTEP fixture) the two
         bond rules agree: the bridging exO coordinates exactly its two Si
         at the frozen crystallographic distances."""
-        from diffusion_model_tpu.data.local_env import voronoi_neighbors
+        from diffusion_model.data.local_env import voronoi_neighbors
 
         s = self._quartz()
         vn = voronoi_neighbors(s, s.exo_index)
@@ -209,8 +209,8 @@ class TestVoronoiRule:
         scale-free) returns the identical two Si — the regime where the
         covalent substitution for CrystalNN stops matching (VERDICT r2
         missing #1)."""
-        from diffusion_model_tpu.data.cell import CellStructure
-        from diffusion_model_tpu.data.local_env import voronoi_neighbors
+        from diffusion_model.data.cell import CellStructure
+        from diffusion_model.data.local_env import voronoi_neighbors
 
         s = self._quartz()
         dilated = CellStructure(

@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config, from_dict, load_config
-from diffusion_model_tpu.data.batch import collate
-from diffusion_model_tpu.data.io import load_dataset, resize_spectra, save_dataset
-from diffusion_model_tpu.data.legacy import npy_to_graphs
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.nn import DiffusionDenoiser
-from diffusion_model_tpu.utils.logging import RunLogger, load_run_config
+from diffusion_model.config import Config, from_dict, load_config
+from diffusion_model.data.batch import collate
+from diffusion_model.data.io import load_dataset, resize_spectra, save_dataset
+from diffusion_model.data.legacy import npy_to_graphs
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.nn import DiffusionDenoiser
+from diffusion_model.utils.logging import RunLogger, load_run_config
 
 
 class TestLegacyNpy:
@@ -85,7 +85,7 @@ class TestProfiling:
     def test_phase_timer_accumulates(self):
         import time
 
-        from diffusion_model_tpu.utils.profiling import PhaseTimer
+        from diffusion_model.utils.profiling import PhaseTimer
 
         t = PhaseTimer()
         for _ in range(3):
@@ -105,7 +105,7 @@ class TestProfiling:
         import jax
         import jax.numpy as jnp
 
-        from diffusion_model_tpu.utils.profiling import annotate
+        from diffusion_model.utils.profiling import annotate
 
         def f(x):
             with annotate("block"):
@@ -115,8 +115,8 @@ class TestProfiling:
 
     @pytest.mark.slow
     def test_api_train_writes_profile(self, tmp_path):
-        from diffusion_model_tpu import api
-        from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+        from diffusion_model import api
+        from diffusion_model.data.synthetic import synthetic_sio2_dataset
 
         cfg = Config(
             n_max=5, L=1, m_hidden_size=8, h_hidden_size=8,
@@ -136,7 +136,7 @@ class TestProfiling:
 
 class TestFramesAndLegacySchedules:
     def test_center_of_mass(self):
-        from diffusion_model_tpu.data.frames import center_of_mass
+        from diffusion_model.data.frames import center_of_mass
 
         pos = np.array([[0.0, 0, 0], [1.0, 0, 0]])
         com = center_of_mass(pos, ["O", "Si"])
@@ -144,7 +144,7 @@ class TestFramesAndLegacySchedules:
         assert com[0] == pytest.approx(28.0855 / 44.0855, rel=1e-6)
 
     def test_align_exo_frame(self, rng):
-        from diffusion_model_tpu.data.frames import (
+        from diffusion_model.data.frames import (
             align_exo_frame,
             center_of_mass,
         )
@@ -164,14 +164,14 @@ class TestFramesAndLegacySchedules:
         np.testing.assert_allclose(d0, d1, rtol=1e-9, atol=1e-9)
 
     def test_pad_and_flatten(self):
-        from diffusion_model_tpu.data.frames import pad_and_flatten
+        from diffusion_model.data.frames import pad_and_flatten
 
         out = pad_and_flatten(np.ones((3, 3)))
         assert out.shape == (15,)
         assert out[:9].sum() == 9 and out[9:].sum() == 0
 
     def test_beta_schedules(self):
-        from diffusion_model_tpu.ops.schedules import (
+        from diffusion_model.ops.schedules import (
             beta_schedule,
             ddpm_alpha_bar,
         )
@@ -194,12 +194,12 @@ class TestMultiSpecies:
     def test_qm9_style_training_and_sampling(self):
         """atom_type_size=5 path (the reference's QM9 smoke test widens the
         species one-hot to 5, ref main.py:90-95)."""
-        from diffusion_model_tpu.data.split import batch_iterator
-        from diffusion_model_tpu.data.synthetic import (
+        from diffusion_model.data.split import batch_iterator
+        from diffusion_model.data.synthetic import (
             synthetic_molecule_dataset,
         )
-        from diffusion_model_tpu.diffusion import predefined_schedule, sample
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.diffusion import predefined_schedule, sample
+        from diffusion_model.train import Trainer
 
         cfg = Config(n_max=10, L=2, m_hidden_size=32, h_hidden_size=32,
                      x_hidden_size=32, m_size=16, spectrum_size=16,
@@ -230,7 +230,7 @@ class TestCachedCell:
     through the atomic npz), and must not re-invoke the maker on hit."""
 
     def test_roundtrip_and_single_invocation(self, tmp_path):
-        from diffusion_model_tpu.data.synthetic import (
+        from diffusion_model.data.synthetic import (
             amorphous_network_cell,
             cached_cell,
         )

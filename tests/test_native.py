@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.data import native
-from diffusion_model_tpu.data.cell import (
+from diffusion_model.data import native
+from diffusion_model.data.cell import (
     CellStructure,
     distance_matrix,
     lattice_from_parameters,
     supercell_333,
 )
-from diffusion_model_tpu.data.shells import build_graph, shell_indices
+from diffusion_model.data.shells import build_graph, shell_indices
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"

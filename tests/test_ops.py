@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 from scipy.ndimage import gaussian_filter1d
 
-from diffusion_model_tpu.ops import (
+from diffusion_model.ops import (
     clip_noise_schedule,
     cn2_angle_deg,
     cn2_bond_lengths,
@@ -24,7 +24,7 @@ from diffusion_model_tpu.ops import (
     rdf_from_exo,
     remove_mean,
 )
-from diffusion_model_tpu.ops.rdf import gaussian_smooth_1d
+from diffusion_model.ops.rdf import gaussian_smooth_1d
 
 
 def numpy_polynomial_schedule(timesteps, s=1e-4, power=3.0):

@@ -7,16 +7,16 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.split import batch_iterator
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.diffusion import predefined_schedule, sample
-from diffusion_model_tpu.parallel import (
+from diffusion_model.config import Config
+from diffusion_model.data.split import batch_iterator
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.diffusion import predefined_schedule, sample
+from diffusion_model.parallel import (
     make_mesh,
     replicate,
     shard_graph_batch,
 )
-from diffusion_model_tpu.train import Trainer
+from diffusion_model.train import Trainer
 
 
 def tiny_cfg(**kw):
@@ -74,7 +74,7 @@ class TestDataParallel:
         ('replica', 'data') hybrid mesh spans both axes with DP."""
         from jax.sharding import Mesh
 
-        from diffusion_model_tpu.parallel import dp_batch_sharding
+        from diffusion_model.parallel import dp_batch_sharding
 
         mesh = Mesh(np.asarray(jax.devices()).reshape(2, 4),
                     ("model", "data"))
@@ -99,7 +99,7 @@ class TestMultiEpochDPEquivalence:
         import json
         import os
 
-        from diffusion_model_tpu import api
+        from diffusion_model import api
 
         cfg = tiny_cfg(n_max=16, num_diffusion_timestep=50,
                        optimizer="RAdamScheduleFree", num_epochs=10)
@@ -189,7 +189,7 @@ class TestShardedSampling:
 class TestApiMeshTraining:
     @pytest.mark.slow
     def test_train_over_mesh(self, mesh, tmp_path):
-        from diffusion_model_tpu import api
+        from diffusion_model import api
 
         cfg = tiny_cfg(mesh_shape=(8,))
         data = synthetic_sio2_dataset(9, 40, cfg.n_max,
@@ -212,7 +212,7 @@ class TestHybridMesh:
 
     @pytest.mark.slow
     def test_hybrid_dp_matches_single_device(self):
-        from diffusion_model_tpu.parallel import make_hybrid_mesh
+        from diffusion_model.parallel import make_hybrid_mesh
 
         hmesh = make_hybrid_mesh(dcn_replicas=2)
         assert hmesh.axis_names == ("replica", "data")
@@ -242,7 +242,7 @@ class TestHybridMesh:
     def test_dp_node_layout_forward_matches(self):
         """Batch over 'replica' (DCN), nodes over 'data' (ICI): the
         large-cell multi-slice layout. Forward parity vs unsharded."""
-        from diffusion_model_tpu.parallel import make_hybrid_mesh
+        from diffusion_model.parallel import make_hybrid_mesh
 
         hmesh = make_hybrid_mesh(dcn_replicas=2)
         cfg = tiny_cfg(batch_size=2, n_max=16)

@@ -8,7 +8,7 @@ import sys
 
 import numpy as np
 
-from diffusion_model_tpu.data.synthetic import amorphous_network_cell
+from diffusion_model.data.synthetic import amorphous_network_cell
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

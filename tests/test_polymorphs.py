@@ -12,7 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.data import polymorphs as P
+from diffusion_model.data import polymorphs as P
 
 
 def _bonds(poly):
@@ -80,7 +80,7 @@ class TestCorpusPipeline:
         d = tmp_path / "c" / "sample_000_quartz_o0"
         cn, ang = P.write_sample(str(d), P.QUARTZ, 0, rng)
         assert cn == 2
-        from diffusion_model_tpu.data.shells import build_dataset
+        from diffusion_model.data.shells import build_dataset
 
         ds = build_dataset(str(tmp_path / "c"), nn_range="2NN")
         assert len(ds) == 1
@@ -114,10 +114,10 @@ class TestCorpusPipeline:
         (the miniature of examples/real_data_e2e.py)."""
         import jax
 
-        from diffusion_model_tpu import api
-        from diffusion_model_tpu.cli import make_dataset
-        from diffusion_model_tpu.config import Config
-        from diffusion_model_tpu.data.io import load_dataset
+        from diffusion_model import api
+        from diffusion_model.cli import make_dataset
+        from diffusion_model.config import Config
+        from diffusion_model.data.io import load_dataset
 
         corpus = str(tmp_path / "corpus")
         P.write_corpus(corpus, seed=0, max_sites_per_polymorph=4)
@@ -156,7 +156,7 @@ class TestRattledCorpus:
     """
 
     def test_rattled_cell_matches_manifest_geometry(self, tmp_path):
-        from diffusion_model_tpu.data.cell import read_castep_cell
+        from diffusion_model.data.cell import read_castep_cell
 
         corpus = str(tmp_path / "c")
         man = P.write_corpus(corpus, seed=3, max_sites_per_polymorph=2,

@@ -4,14 +4,16 @@ import os
 
 import numpy as np
 import pytest
-import yaml
 
-from diffusion_model_tpu.data.qm9 import (
+from diffusion_model.data.qm9 import (
     QM9_PROPERTY_NAMES,
     QM9_SPECIES,
     load_qm9_dataset,
     read_qm9_xyz,
 )
+
+# config files are YAML; the package itself does not need PyYAML
+yaml = pytest.importorskip("yaml")
 
 # A real-format GDB-9 entry (methane-like), including the *^ exponent wart
 # and the frequency/SMILES/InChI trailer lines the parser must skip.
@@ -117,7 +119,7 @@ class TestQm9CLI:
     def test_train_smoke(self, qm9_dir, tmp_path):
         """The reference's QM9 smoke run (ref main.py:145-152): widened
         atom_type_size, unconditional, end-to-end through the trainer."""
-        from diffusion_model_tpu.cli import main as cli_main
+        from diffusion_model.cli import main as cli_main
 
         micro = dict(
             L=1, m_hidden_size=16, h_hidden_size=16, x_hidden_size=16,

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.batch import collate
-from diffusion_model_tpu.data.synthetic import amorphous_cell
-from diffusion_model_tpu.nn import DiffusionDenoiser
-from diffusion_model_tpu.parallel import make_mesh
-from diffusion_model_tpu.parallel.ring import (
+from diffusion_model.config import Config
+from diffusion_model.data.batch import collate
+from diffusion_model.data.synthetic import amorphous_cell
+from diffusion_model.nn import DiffusionDenoiser
+from diffusion_model.parallel import make_mesh
+from diffusion_model.parallel.ring import (
     ring_denoise_apply,
     ring_denoise_fn,
 )
@@ -218,7 +218,7 @@ class TestRing:
         dense train step (same key -> same noise draw -> same grads ->
         same updated params), upgrading ring support from forward-only
         sampling to training (SURVEY.md §2.6 SP-analogue row)."""
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.train import Trainer
 
         cfg = Config(
             n_max=32, L=2, m_hidden_size=32, h_hidden_size=32,
@@ -261,7 +261,7 @@ class TestRing:
         diffuse_batch + the VDM boundary terms, replicated outside
         shard_map) and classifier-free conditioning dropout reproduces the
         dense train step — the restrictions VERDICT r3 weak #2 flagged."""
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.train import Trainer
 
         cfg = Config(
             n_max=32, L=2, m_hidden_size=32, h_hidden_size=32,
@@ -303,7 +303,7 @@ class TestRing:
         the coordinate loss would train the wrong objective), and a B>1
         batch must be rejected at trace time (the single ring prediction
         would broadcast against every graph's noise targets)."""
-        from diffusion_model_tpu.train import Trainer
+        from diffusion_model.train import Trainer
 
         base = dict(
             n_max=16, L=2, m_hidden_size=32, h_hidden_size=32,
@@ -377,8 +377,8 @@ class TestRingSampling:
         return cfg, cell, batch, model, params
 
     def test_sampler_matches_dense_path(self):
-        from diffusion_model_tpu.diffusion.sampler import sample
-        from diffusion_model_tpu.parallel.ring import (
+        from diffusion_model.diffusion.sampler import sample
+        from diffusion_model.parallel.ring import (
             ring_sampler_denoise_fn,
         )
 
@@ -403,8 +403,8 @@ class TestRingSampling:
     def test_generate_ring_end_to_end(self, tmp_path):
         """api.generate_ring drives conditions x repeats at B=1 and its
         output dict feeds api.evaluate unchanged."""
-        from diffusion_model_tpu import api
-        from diffusion_model_tpu.train import Trainer, TrainState
+        from diffusion_model import api
+        from diffusion_model.train import Trainer, TrainState
 
         cfg, cell, batch, model, params = self._setup()
         ring_cfg = cfg.replace(ring_sample=True)
@@ -424,7 +424,7 @@ class TestRingSampling:
         assert out["num_accepted"] == 2 * g
 
     def test_rejects_knn_and_batches(self):
-        from diffusion_model_tpu.parallel.ring import (
+        from diffusion_model.parallel.ring import (
             ring_sampler_denoise_fn,
         )
 
@@ -441,6 +441,6 @@ class TestRingSampling:
 
 
 def _sched(cfg, params):
-    from diffusion_model_tpu.diffusion import predefined_schedule
+    from diffusion_model.diffusion import predefined_schedule
 
     return predefined_schedule(cfg)

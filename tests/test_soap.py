@@ -9,12 +9,12 @@ reference relies on from dscribe (ref template_matching.py:41-68).
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.evals.soap import (
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.evals.soap import (
     _radial_basis,
     soap_descriptor,
 )
-from diffusion_model_tpu.evals import template_match
+from diffusion_model.evals import template_match
 
 # small settings for speed; one test runs the reference's full (15, 10)
 N_MAX, L_MAX = 4, 3
@@ -146,7 +146,7 @@ class TestBruteForceOracle:
         Softened sigma / low n_max keep both quadratures well-resolved."""
         from numpy.polynomial.legendre import leggauss
 
-        from diffusion_model_tpu.evals.soap import (
+        from diffusion_model.evals.soap import (
             _radial_basis,
             _sph_harm_y,
         )

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.split import batch_iterator, split_dataset
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.diffusion import predefined_schedule
-from diffusion_model_tpu.train import (
+from diffusion_model.config import Config
+from diffusion_model.data.split import batch_iterator, split_dataset
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.diffusion import predefined_schedule
+from diffusion_model.train import (
     EarlyStopping,
     Trainer,
     diffuse_batch,
@@ -299,11 +299,11 @@ class TestCheckpoint:
         pre-reparameterisation raw values, scale 1.0)."""
         import jax.numpy as jnp
 
-        from diffusion_model_tpu.nn.gamma import GammaNetwork
-        from diffusion_model_tpu.train.checkpoint import (
+        from diffusion_model.nn.gamma import GammaNetwork
+        from diffusion_model.train.checkpoint import (
             _rescale_gamma_endpoints,
         )
-        from diffusion_model_tpu.train.trainer import TrainState
+        from diffusion_model.train.trainer import TrainState
 
         state = TrainState(
             params={
@@ -344,11 +344,11 @@ class TestCheckpoint:
         (mu) / quadratically (nu)."""
         import jax.numpy as jnp
 
-        from diffusion_model_tpu.nn.gamma import GammaNetwork
-        from diffusion_model_tpu.train.checkpoint import (
+        from diffusion_model.nn.gamma import GammaNetwork
+        from diffusion_model.train.checkpoint import (
             _rescale_gamma_endpoints,
         )
-        from diffusion_model_tpu.train.trainer import (
+        from diffusion_model.train.trainer import (
             TrainState,
             make_optimizer,
         )
@@ -459,7 +459,7 @@ class TestTLossWeight:
     (the gradient-emphasis variant of t_bias_frac, VERDICT-r4 candidate)."""
 
     def test_off_is_none_and_loss_identical(self):
-        from diffusion_model_tpu.train import t_band_weights
+        from diffusion_model.train import t_band_weights
 
         cfg = tiny_cfg()
         assert t_band_weights(cfg, jnp.asarray([1, 2, 3])) is None
@@ -478,7 +478,7 @@ class TestTLossWeight:
         (hence effective lr under clipping) is unchanged, including at
         batch_size=1 where a batch-mean normalisation would cancel the
         lever outright."""
-        from diffusion_model_tpu.train import t_band_weights
+        from diffusion_model.train import t_band_weights
 
         cfg = tiny_cfg(t_loss_weight=3.0, t_bias_lo=10, t_bias_hi=20)
         t_all = jnp.arange(1, cfg.num_diffusion_timestep + 1)
@@ -500,7 +500,7 @@ class TestTLossWeight:
         assert float(plain[0]) != float(weighted[0])
 
     def test_validation(self):
-        from diffusion_model_tpu.train import t_band_weights
+        from diffusion_model.train import t_band_weights
 
         t = jnp.asarray([1, 2])
         with pytest.raises(ValueError, match="t-band"):
@@ -542,7 +542,7 @@ class TestCurriculumInit:
         eval params (the quality-bearing schedule-free average), with a
         fresh optimizer and epoch 0 — and works across n_max (the EGNN is
         size-agnostic)."""
-        from diffusion_model_tpu import api
+        from diffusion_model import api
 
         cfg_a = tiny_cfg(optimizer="RAdamScheduleFree", num_epochs=2,
                          checkpoint_every=0)
@@ -572,7 +572,7 @@ class TestCurriculumInit:
     def test_resume_wins_over_init_from(self, tmp_path):
         """A checkpoint in the run dir + resume=True must take precedence
         (watchdog relaunches of a curriculum run keep their progress)."""
-        from diffusion_model_tpu import api
+        from diffusion_model import api
 
         cfg = tiny_cfg(optimizer="Adam", num_epochs=2, checkpoint_every=1)
         data = synthetic_sio2_dataset(0, 12, cfg.n_max,

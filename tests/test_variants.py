@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.split import batch_iterator
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.diffusion import predefined_schedule, sample
-from diffusion_model_tpu.nn.spectrum_latent import (
+from diffusion_model.config import Config
+from diffusion_model.data.split import batch_iterator
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.diffusion import predefined_schedule, sample
+from diffusion_model.nn.spectrum_latent import (
     encode_dataset,
     pretrain_autoencoder,
 )
-from diffusion_model_tpu.train import Trainer
-from diffusion_model_tpu.utils.profiling import PhaseTimer
+from diffusion_model.train import Trainer
+from diffusion_model.utils.profiling import PhaseTimer
 
 
 def tiny_cfg(**kw):
@@ -137,7 +137,7 @@ class TestUnconditional:
         """conditional=False drops the spectrum features entirely
         (ref main.py:107-108: h_size = atom_type + t)."""
         import jax.numpy as jnp
-        from diffusion_model_tpu.diffusion import predefined_schedule, sample
+        from diffusion_model.diffusion import predefined_schedule, sample
 
         cfg = tiny_cfg(conditional=False, give_exO=False)
         assert cfg.h_size == cfg.atom_type_size + 1
@@ -147,7 +147,7 @@ class TestUnconditional:
                                    spectrum_size=cfg.spectrum_size),
             None,
         )
-        from diffusion_model_tpu.data.split import batch_iterator
+        from diffusion_model.data.split import batch_iterator
 
         batch = next(batch_iterator(graphs, cfg.batch_size, cfg.n_max))
         state = trainer.init_state(jax.random.key(0), batch)

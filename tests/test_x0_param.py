@@ -22,17 +22,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_model_tpu.config import Config
-from diffusion_model_tpu.data.split import batch_iterator
-from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
-from diffusion_model_tpu.diffusion import predefined_schedule, sample
-from diffusion_model_tpu.diffusion.process import (
+from diffusion_model.config import Config
+from diffusion_model.data.split import batch_iterator
+from diffusion_model.data.synthetic import synthetic_sio2_dataset
+from diffusion_model.diffusion import predefined_schedule, sample
+from diffusion_model.diffusion.process import (
     diffuse_zero_to_t,
     v_out_to_eps,
     x0_out_to_eps,
     x_param_is_x0,
 )
-from diffusion_model_tpu.train import Trainer
+from diffusion_model.train import Trainer
 
 
 def tiny_cfg(**kw):
@@ -178,9 +178,9 @@ class TestTraining:
 
     @pytest.mark.slow
     def test_ring_train_step_matches_dense_x0(self):
-        from diffusion_model_tpu.data.batch import collate
-        from diffusion_model_tpu.data.synthetic import amorphous_cell
-        from diffusion_model_tpu.parallel import make_mesh
+        from diffusion_model.data.batch import collate
+        from diffusion_model.data.synthetic import amorphous_cell
+        from diffusion_model.parallel import make_mesh
 
         cfg = Config(
             n_max=32, L=2, m_hidden_size=32, h_hidden_size=32,
@@ -204,7 +204,7 @@ class TestTraining:
                                    float(dense_m["loss"]), rtol=1e-4)
 
     def test_distill_refuses_x0(self):
-        from diffusion_model_tpu.train.distill import distill_loss
+        from diffusion_model.train.distill import distill_loss
 
         cfg = tiny_cfg(x_parameterization="x0")
         with pytest.raises(NotImplementedError, match="distillation"):
